@@ -116,7 +116,7 @@ def load_chunks(files: List[str], k: int, datatype: str, chunk: int):
 
 def _device_search_batches(db, q_ps, model_c, model_r, a_arr, q_arr):
     """Device path for the all-vs-query grid (FC_Runner.cpp:426-471): the
-    densest, most TPU-friendly workload in the project — zero sequential
+    densest, most device-friendly workload in the project — zero sequential
     dependence, one [pairs] batch per block through the dd-f32 scoring
     kernels (cluster/device_update.DeviceUpdater).
 
@@ -317,6 +317,9 @@ def mem_used(prefix: str) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils.jaxconfig import ensure_compilation_cache
+
+    ensure_compilation_cache()
     if not args.files or not args.query:
         build_parser().print_help()
         return 1

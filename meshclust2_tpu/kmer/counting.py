@@ -149,8 +149,7 @@ def build_point_set(
     native = None
     if n and os.environ.get("MC2_DEVICE_COUNT"):
         # sharded device histogram build (parallel/mesh.py): byte-equal to
-        # the native counter incl. saturation and segment masks; opted in
-        # for --device tpu runs / multi-chip deployments
+        # the native counter incl. saturation and segment masks; opt-in
         from ..parallel.mesh import device_build_counts
 
         dev_counts, dev_ones = device_build_counts(records, k, dtype_max)

@@ -77,6 +77,7 @@ def _build_lib() -> Optional[ctypes.CDLL]:
     lib = ctypes.CDLL(so)
     i64p = _i64p
     lib.mc2_set_num_threads.argtypes = [ctypes.c_int32]
+    lib.mc2_simd_level.restype = ctypes.c_int
     lib.sort_perm_u64.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64, i64p]
     lib.sort_perm_f64.argtypes = [_f64p, ctypes.c_int64, i64p]
     lib.sort_perm_bytes.argtypes = [_u8p, i64p, ctypes.c_int64, i64p]
@@ -281,6 +282,15 @@ def set_num_threads(n: int) -> None:
     lib = _get_lib()
     if lib is not None and n > 0:
         lib.mc2_set_num_threads(int(n))
+
+
+def simd_level() -> str:
+    """Which SIMD kernels the native library was built with: "AVX-512",
+    "AVX2", "scalar", or "unavailable" when it did not build."""
+    lib = _get_lib()
+    if lib is None:
+        return "unavailable"
+    return {512: "AVX-512", 2: "AVX2"}.get(lib.mc2_simd_level(), "scalar")
 
 
 def sort_perm(keys: np.ndarray) -> np.ndarray:

@@ -1,11 +1,11 @@
-"""Batched device (XLA/TPU) feature scoring.
+"""Batched device (XLA) feature scoring.
 
 The classifier's hot loop — score one center against a window of candidate
 histograms (Trainer.cpp:22-71, the reference's OpenMP hot loop P6) — is
 re-expressed as a single batched device computation over the [B, 4^k] block:
 
-  - every selected single feature is computed from fused elementwise
-    reductions (VPU) and dot products (MXU) over the block;
+  - every selected single feature is computed from elementwise reductions
+    and dot products over the block, which XLA fuses;
   - per-point reusable quantities (self dot products, log planes, grouped
     sums, rank planes, n2-normalized planes, d2s expectation planes) are
     precomputed once per dataset, turning many pairwise formulas into plain
@@ -22,9 +22,8 @@ Batch shapes are padded to power-of-two buckets to bound XLA recompilation.
 from __future__ import annotations
 
 import math
-import os
 from functools import partial
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -32,16 +31,6 @@ from ..features import flags as F
 from ..features import host as H
 from ..kmer.counting import PointSet
 from ..model.classifier import CompiledModel
-from .pallas_stats import center_block_stats, derive_singles
-
-# singles derivable from the Pallas fused-stats kernel's (sum-min, dot, EMD)
-# plus per-point moments (ops/pallas_stats.py:derive_singles)
-_FUSED_DERIVABLE = frozenset({
-    F.FEAT_MANHATTAN, F.FEAT_EUCLIDEAN, F.FEAT_INTERSECTION,
-    F.FEAT_KULCZYNSKI2, F.FEAT_SIMRATIO, F.FEAT_NORMALIZED_VECTORS,
-    F.FEAT_PEARSON_COEFF, F.FEAT_D2z, F.FEAT_EUCLIDEAN_Z, F.FEAT_EMD,
-    F.FEAT_LENGTHD,
-})
 
 # decisions closer than this to a rounding threshold get re-checked in f64
 DEFAULT_PROB_MARGIN = 2e-4
@@ -132,44 +121,6 @@ class DeviceFeatureEngine:
             self.planes["digit_count"] = jnp.asarray(dc)
 
         self._pair_fn = jax.jit(self._build_pair_fn())
-
-        # Pallas fused-stats eligibility: every selected single must derive
-        # from the kernel's integer statistics, and those statistics must fit
-        # the kernel's int32 accumulators / exact-f32 prefix range
-        # (dot <= max_count * max_mag, emd <= d * max_mag, |prefix| < 2^24).
-        maxc = float(ps.counts.max()) if ps.n else 0.0
-        maxmag = float(ps.mags.max()) if ps.n else 0.0
-        self.fused_ok = (
-            set(self.singles) <= _FUSED_DERIVABLE
-            and maxc * maxmag < 2**31
-            and maxmag * d < 2**31  # bounds the int32 EMD total too
-            and maxmag < 2**24
-        )
-        if self.fused_ok:
-            c64 = ps.counts.astype(np.float64)
-            self._mags64 = ps.mags.astype(np.float64)
-            self._self64 = np.einsum("ij,ij->i", c64, c64)
-            self._len64 = ps.lengths.astype(np.float64)
-
-    def center_singles_fused(self, rows: np.ndarray, center_row: int,
-                             interpret: Optional[bool] = None) -> np.ndarray:
-        """Raw singles [B, S] float64 for a block of rows against ONE center,
-        through the Pallas fused-stats kernel (one HBM pass over the block
-        instead of one reduction per feature).  Requires self.fused_ok."""
-        rows = np.asarray(rows)
-        stats = center_block_stats(
-            self.ps.counts[rows], self.ps.counts[center_row], interpret=interpret
-        )
-        b = len(rows)
-        full = lambda v: np.full(b, v)
-        return derive_singles(
-            stats,
-            self._mags64[rows], full(self._mags64[center_row]),
-            self._self64[rows], full(self._self64[center_row]),
-            self.ps.stddevs[rows], full(self.ps.stddevs[center_row]),
-            self._len64[rows], full(self._len64[center_row]),
-            self.d, list(self.singles),
-        )
 
     def _n2_plane(self, flag: int) -> np.ndarray:
         ps = self.ps
@@ -356,7 +307,9 @@ class DeviceFeatureEngine:
                     )
                     # product over index digits as a matmul in log space:
                     # pq1[i] = prod_j cm[digit_j(i)] = exp(digit_count @ log cm)
-                    pq1 = jnp.exp(planes["digit_count"] @ jnp.log(cm).T).T  # [B, D]
+                    pq1 = jnp.exp(jnp.matmul(
+                        planes["digit_count"], jnp.log(cm).T,
+                        precision=self.jax.lax.Precision.HIGHEST)).T  # [B, D]
                     rm_sum = self.real_mags[a_idx] + self.real_mags[b_idx]
                     e = rm_sum[:, None] * pq1 + 1
                     pq_len = jnp.sqrt(self.real_mags[a_idx] * self.real_mags[b_idx])
@@ -448,9 +401,6 @@ class DeviceScorer:
         self.exact_recheck = exact_recheck
         self.prob_margin = prob_margin
         self.dist_band = dist_band
-        # MC2_PALLAS: "auto"/"1" route block-vs-one-center batches through
-        # the fused Pallas stats kernel when eligible; "0" disables.
-        self.use_fused = os.environ.get("MC2_PALLAS", "auto") != "0"
         from ..cluster.engine import HostScorer
 
         self._host = HostScorer(ps, model)
@@ -464,22 +414,7 @@ class DeviceScorer:
             b_rows = np.broadcast_to(b_rows, a_rows.shape)
         if len(a_rows) == 1 and len(b_rows) > 1:
             a_rows = np.broadcast_to(a_rows, b_rows.shape)
-        if (
-            self.use_fused
-            and self.engine.fused_ok
-            and len(b_rows) > 1
-            and (b_rows == b_rows[0]).all()
-        ):
-            # the common center-vs-window shape: one fused HBM pass
-            try:
-                raw = self.engine.center_singles_fused(a_rows, int(b_rows[0]))
-            except Exception:
-                # e.g. Mosaic compile failure on an unusual dim; fall back
-                # permanently to the unfused device path
-                self.use_fused = False
-                raw = self.engine.singles_batch(a_rows, b_rows).astype(np.float64)
-        else:
-            raw = self.engine.singles_batch(a_rows, b_rows).astype(np.float64)
+        raw = self.engine.singles_batch(a_rows, b_rows).astype(np.float64)
         _, prob, dist = self.model.decision_from_raw(raw)
         self.scored_pairs += len(a_rows)
         if self.exact_recheck:

@@ -1,7 +1,7 @@
 """Multi-chip sharding: device mesh setup and the sharded compute steps.
 
-The reference is a single-node OpenMP program (SURVEY §2.8); its TPU-native
-equivalent shards the [N, 4^k] histogram matrix data-parallel across a
+The reference is a single-node OpenMP program (SURVEY §2.8); its
+equivalent here shards the [N, 4^k] histogram matrix data-parallel across a
 jax.sharding Mesh and expresses the cross-device reductions that the
 algorithm needs as XLA collectives:
 
@@ -14,8 +14,9 @@ algorithm needs as XLA collectives:
     psum, with the tiny solve replicated.
 
 All functions here are pure and jittable; the mean-shift engine calls them
-through shard_map over a 1-D "data" mesh (ICI-friendly: only all-reduce
-traffic, no gathers of histogram data).
+through shard_map over a 1-D "data" mesh (only all-reduce traffic, no
+gathers of histogram data; every device reaches every other over NVLink,
+so the mesh follows the algorithm alone).
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
+
+# float32 matmuls that feed decisions and means ask for full f32 precision
+# (the GPU would otherwise run them in TF32)
+HIGHEST = "highest"
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "data"):
@@ -64,7 +69,7 @@ def classify_kernel_factory(weights, mins, maxs, is_sim, combo_spec,
                 c = v[:, idxs[0]] ** 2 * v[:, idxs[1]]
             cols.append(c)
         combo = jnp.stack(cols, axis=1)
-        s = w[0] + combo @ w[1:]
+        s = w[0] + jnp.matmul(combo, w[1:], precision=HIGHEST)
         # prob = logistic(s) + bias (Predictor.cpp:310-320 — the --bias knob)
         prob = 1.0 / (1.0 + jnp.exp(-s)) + jnp.float32(bias)
         return prob, combo[:, 0]
@@ -115,7 +120,8 @@ def sharded_mean_update(mesh, axis: str = "data"):
     )
     def fn(H_local, mags_local, mask_local, global_rows_local):
         # member mean per center: psum(masked sum) / psum(count)
-        sums = jax.lax.psum(mask_local @ H_local, axis)          # [C, D]
+        sums = jax.lax.psum(
+            jnp.matmul(mask_local, H_local, precision=HIGHEST), axis)  # [C, D]
         counts = jax.lax.psum(mask_local.sum(axis=1), axis)      # [C]
         top = sums / jnp.maximum(counts, 1.0)[:, None]
         # distance_d of each local member to its center's mean
@@ -161,8 +167,10 @@ def sharded_glm_solve(mesh, axis: str = "data"):
         out_specs=P(),
     )
     def fn(X_local, y_local):
-        xtx = jax.lax.psum(X_local.T @ X_local, axis)
-        xty = jax.lax.psum(X_local.T @ y_local, axis)
+        xtx = jax.lax.psum(
+            jnp.matmul(X_local.T, X_local, precision=HIGHEST), axis)
+        xty = jax.lax.psum(
+            jnp.matmul(X_local.T, y_local, precision=HIGHEST), axis)
         return jnp.linalg.solve(xtx, xty)
 
     return jax.jit(fn)

@@ -15,10 +15,10 @@ discipline as DeviceScorer — decisions within a margin of the rounding
 threshold, and near-argmax distances, are recomputed by the float64 host
 oracle, so clustering decisions match the exact semantics.
 
-Feature support matches the fused kernel set (ops/pallas_stats.py): the
-presets the default configs select (manhattan, euclidean, intersection,
-kulczynski2, simratio, normalized_vectors, pearson, d2z, euclidean_z,
-emd, lengthd).
+Feature support matches the integer-statistics set
+(cluster/device_loop.DD_DERIVABLE): the presets the default configs select
+(manhattan, euclidean, intersection, kulczynski2, simratio,
+normalized_vectors, pearson, d2z, euclidean_z, emd, lengthd).
 """
 from __future__ import annotations
 
@@ -186,7 +186,7 @@ class MeshScorer:
                     c = v[:, idxs[0]] ** 2 * v[:, idxs[1]]
                 cols.append(c)
             combo = jnp.stack(cols, axis=1)
-            s = w[0] + combo @ w[1:]
+            s = w[0] + jnp.matmul(combo, w[1:], precision="highest")
             # logistic(s) + bias (Predictor.cpp:310-320 — the --bias knob;
             # omitting it silently flips decisions under -b)
             prob = 1.0 / (1.0 + jnp.exp(-s)) + jnp.float32(bias)

@@ -1,7 +1,7 @@
 """Multi-process (multi-host) data-parallel clustering runtime.
 
 The reference scales with OpenMP threads on one node (CRunner.cpp:407-422);
-the TPU-native equivalent is SPMD over a process mesh (SCALING.md):
+the equivalent here is SPMD over a device mesh (SCALING.md):
 
   - `jax.distributed.initialize()` forms the global runtime (env-driven:
     MC2_COORD, MC2_NPROCS, MC2_PROC_ID — or the platform's defaults);
@@ -35,19 +35,35 @@ from ..kmer.counting import PointSet, build_point_set
 from .mesh_scorer import MeshScorer
 
 
+def distributed_args(environ=os.environ) -> Optional[dict]:
+    """jax.distributed.initialize arguments from MC2_NPROCS / MC2_PROC_ID /
+    MC2_COORD; None for a single process (which drives every local device).
+
+    One process per host is the layout: on one GPU host, one process
+    drives all of its cards.  When several processes do share a host (a
+    localhost coordinator), each one opens only the card with its own
+    process id, so no two processes open the same card."""
+    nprocs = int(environ.get("MC2_NPROCS", "1"))
+    if nprocs <= 1:
+        return None
+    coord = environ.get("MC2_COORD", "localhost:9731")
+    pid = int(environ["MC2_PROC_ID"])
+    args = dict(coordinator_address=coord, num_processes=nprocs,
+                process_id=pid)
+    if coord.rsplit(":", 1)[0] in ("localhost", "127.0.0.1", "[::1]"):
+        args["local_device_ids"] = [pid]
+    return args
+
+
 def initialize_from_env() -> tuple:
     """(process_id, num_processes); single-process when MC2_NPROCS unset."""
-    nprocs = int(os.environ.get("MC2_NPROCS", "1"))
-    if nprocs <= 1:
+    args = distributed_args()
+    if args is None:
         return 0, 1
     import jax
 
-    jax.distributed.initialize(
-        coordinator_address=os.environ.get("MC2_COORD", "localhost:9731"),
-        num_processes=nprocs,
-        process_id=int(os.environ["MC2_PROC_ID"]),
-    )
-    return int(os.environ["MC2_PROC_ID"]), nprocs
+    jax.distributed.initialize(**args)
+    return args["process_id"], args["num_processes"]
 
 
 def _stream_records(files: List[str]):
@@ -427,12 +443,18 @@ def run_multihost(args) -> int:
     import jax
 
     pid, nprocs = initialize_from_env()
+    if args.device == "gpu":
+        from ..cli import require_device
+
+        require_device()
     from .mesh import make_mesh
     from ..model.weights import load_weights
     from ..model.classifier import CompiledModel
     from ..cluster.engine import MeanShiftEngine
     from ..io.clstr import write_clstr
+    from ..utils.clock import Clock
 
+    clock = Clock()
     if not args.recover:
         print("--multihost requires --recover (train single-process first)",
               file=sys.stderr)
@@ -442,23 +464,28 @@ def run_multihost(args) -> int:
     mesh = make_mesh()
     meta, gcounts, fetch = build_global_points(
         args.files, pred.k, pred.datatype, pid, nprocs, mesh)
+    shards = gcounts.addressable_shards
+    print(f"multihost: {nprocs} process(es), {mesh.devices.size} "
+          f"{jax.devices()[0].platform} devices; counts {gcounts.shape} "
+          f"over {len(gcounts.sharding.device_set)} devices, "
+          f"{len(shards)} local shards of {shards[0].data.shape[0]} rows")
     scorer = MultihostScorer(meta, model, mesh, gcounts, fetch)
     sim = pred.id_cutoff
 
     # the fast path IS the distributed path: the same device-session
-    # combined program, GSPMD-sharded over the global mesh (VERDICT r4
-    # next-step 5).  MultihostScorer remains the replicated-decision
+    # combined program, GSPMD-sharded over the global mesh.  MultihostScorer remains the replicated-decision
     # fallback for aborts and for models outside the device envelope.
     session = None
     if not os.environ.get("MC2_NO_DEVICE_SESSION"):
-        try:
-            from .multihost_session import build_multihost_session
+        from ..cluster.device_loop import DeviceLoopUnsupported
+        from .multihost_session import build_multihost_session
 
+        try:
             session = build_multihost_session(
                 meta, model, sim, mesh, gcounts, fetch,
                 meta.self_dots, meta.maxc, args.delta, args.iterations)
             scorer.prefers_device_loop = True
-        except Exception as e:  # noqa: BLE001 - envelope/backend opaque
+        except DeviceLoopUnsupported as e:
             print(f"multihost device session unavailable ({e}); "
                   "per-window mesh scoring", file=sys.stderr)
     engine = MeanShiftEngine(meta, model, sim, scorer=scorer,
@@ -466,7 +493,10 @@ def run_multihost(args) -> int:
                              device_session=session)
     engine.row_fetcher = fetch
     engine._host_oracle_cached = FetchOracle(meta, model, fetch)
+    # the clustering window opens after device set-up, as in cli.main
+    clock.stamp("read_in_points")
     clusters = engine.run()
     if pid == 0:
         write_clstr(args.output, engine.to_output(clusters))
+    clock.stamp("done")
     return 0

@@ -107,7 +107,7 @@ class DeviceTableBuilder:
                   if nsm else np.zeros((W,), np.int32))
         dot = ((A * B).sum(axis=1, dtype=jnp.int32)
                if ndot else np.zeros((W,), np.int32))
-        emd = (emd_rowsum(jax, jnp, A - B, self.d)
+        emd = (emd_rowsum(jnp, A - B)
                if nemd else np.zeros((W,), np.int64))
         stats = {"summin": summin, "dot": dot, "emd": emd}
         vals, errs = derive_singles_dd(
@@ -161,7 +161,8 @@ def device_raw_singles(ps: PointSet, a_rows, b_rows, singles,
     """
     try:
         builder = DeviceTableBuilder(ps, singles)
-    except DeviceLoopUnsupported:
+    except DeviceLoopUnsupported as e:
+        print(f"device training tables unavailable ({e}); host builds them")
         return None
     raw, err = builder.raw_with_err(a_rows, b_rows)
     if not len(raw):

@@ -200,3 +200,32 @@ def test_min_max_feat_sweep(fixtures_dir, tmp_path):
         assert rc == 0
         model = load_weights(str(w))
         assert lo <= len(model.classifier.combos) <= hi
+
+
+def test_device_gpu_without_gpu_exits_nonzero(small, weights, tmp_path):
+    """--device gpu with no GPU and without JAX_PLATFORMS=cpu pinned ends
+    the run with one clear message; it never falls back to the host."""
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["CUDA_VISIBLE_DEVICES"] = ""      # hide any card from JAX
+    out = tmp_path / "o.clstr"
+    p = subprocess.run(
+        [sys.executable, "-m", "meshclust2_tpu.cli", "--recover", weights,
+         "--output", str(out), "--device", "gpu", small],
+        env=env, capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert p.returncode != 0
+    assert "--device gpu needs a GPU" in p.stderr
+    assert not out.exists()
+
+
+def test_device_choices():
+    """The device flag names the GPU and nothing else; the default stays on
+    the host."""
+    p = build_parser()
+    (action,) = [a for a in p._actions if a.dest == "device"]
+    assert action.choices == ["auto", "host", "gpu"]
+    assert p.parse_args(["--device", "gpu"]).device == "gpu"
+    assert p.parse_args([]).device == "auto"

@@ -164,7 +164,7 @@ def test_extraslow_device_parity(fixtures_dir, tmp_path, extraslow_weights,
     host = _run(fixtures_dir, tmp_path, "host.clstr", extraslow_weights,
                 {"MC2_NO_DEVICE_LOOP": "1", "MC2_NO_DEVICE_SESSION": "1"})
     dev = _run(fixtures_dir, tmp_path, "dev.clstr", extraslow_weights,
-               {"_DEV": "tpu"})
+               {"_DEV": "gpu"})
     out = capsys.readouterr().out
     assert "device session unavailable" not in out
     assert "no device implementation" not in out
@@ -192,7 +192,7 @@ def test_host_bound_feature_falls_back_loudly(fixtures_dir, tmp_path,
     host = _run(fixtures_dir, tmp_path, "host.clstr", weights,
                 {"MC2_NO_DEVICE_LOOP": "1", "MC2_NO_DEVICE_SESSION": "1"})
     dev = _run(fixtures_dir, tmp_path, "dev.clstr", weights,
-               {"_DEV": "tpu"})
+               {"_DEV": "gpu"})
     out = capsys.readouterr().out
     assert "spearman" in out and "no device implementation" in out
     assert len(host) == len(dev)

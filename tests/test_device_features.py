@@ -75,7 +75,7 @@ def test_device_scored_cluster_parity(fixtures_dir, tmp_path):
         [
             "--recover", os.path.join(fixtures_dir, "small_ref_weights.txt"),
             "--output", str(out),
-            "--device", "tpu",
+            "--device", "gpu",
             os.path.join(fixtures_dir, "small.fasta"),
         ]
     )
@@ -86,7 +86,7 @@ def test_device_scored_cluster_parity(fixtures_dir, tmp_path):
 
 
 def test_hybrid_scorer_routing(fixtures_dir, monkeypatch):
-    """--device tpu builds a HybridScorer: small batches go to the native
+    """--device gpu builds a HybridScorer: small batches go to the native
     scorer, large ones to the device scorer (threshold via env)."""
     import os
 
@@ -102,7 +102,7 @@ def test_hybrid_scorer_routing(fixtures_dir, monkeypatch):
         [os.path.join(fixtures_dir, "small.fasta")], [], w.k, w.datatype, False
     )
     model = CompiledModel(w.classifier)
-    hybrid = make_scorer(ps, model, "tpu")
+    hybrid = make_scorer(ps, model, "gpu")
     host = make_scorer(ps, model, "host")
 
     calls = {"small": 0, "large": 0}

@@ -96,6 +96,7 @@ def test_ddf32_jit_exactness():
 
     from meshclust2_tpu.ops import ddf32 as DD
 
+    jax.config.update("jax_enable_x64", True)   # two_prod widens to f64
     rng = np.random.default_rng(1)
     c64 = rng.random(4096)
     C = DD.dd(*DD.split_f64(c64))
@@ -112,3 +113,59 @@ def test_ddf32_jit_exactness():
     want = w * c64 + w * c64 / np.sqrt(c64)
     rel = np.abs(got - want) / np.abs(want)
     assert rel.max() < 1e-12, rel.max()
+
+
+@pytest.mark.parametrize("d", [64, 1024])
+@pytest.mark.parametrize("maxc", [256, 4095])
+def test_emd_rowsum_exact(d, maxc):
+    """The EMD prefix statistic equals the int64 oracle bit for bit, for
+    uint8-range counts and for wider ones (int32 prefixes, int64 total)."""
+    import jax
+    import jax.numpy as jnp
+
+    from meshclust2_tpu.cluster.device_loop import emd_rowsum
+
+    jax.config.update("jax_enable_x64", True)
+    rng = np.random.default_rng(d + maxc)
+    wc = 256
+    blk = rng.integers(0, maxc + 1, (wc, d), dtype=np.int32)
+    cen = rng.integers(0, maxc + 1, d, dtype=np.int32)
+    diff = blk - cen[None, :]
+    got = np.asarray(jax.jit(lambda x: emd_rowsum(jnp, x))(jnp.asarray(diff)))
+    want = np.abs(np.cumsum(diff.astype(np.int64), axis=1)).sum(axis=1)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+
+
+def test_check_cb_cpu_keeps_4gib():
+    """XLA:CPU reports no memory stats: the update-phase accumulator guard
+    stays at 4 GiB there; a device without stats that is not the CPU is an
+    error, and one with stats gets a share of its allocator limit."""
+    from types import SimpleNamespace
+
+    from meshclust2_tpu.cluster.device_loop import DeviceLoopUnsupported
+    from meshclust2_tpu.cluster.device_phase import (
+        ACC_MEMORY_FRACTION, DevicePhaseUpdater, accumulator_budget_bytes)
+
+    assert accumulator_budget_bytes() == 4 << 30
+    fake = SimpleNamespace(sum32=True, d=1024)
+    DevicePhaseUpdater._check_cb(fake, (4 << 30) // (4 * 1024))
+    with pytest.raises(DeviceLoopUnsupported):
+        DevicePhaseUpdater._check_cb(fake, (4 << 30) // (4 * 1024) + 1)
+    fake64 = SimpleNamespace(sum32=False, d=1024)
+    with pytest.raises(DeviceLoopUnsupported):
+        DevicePhaseUpdater._check_cb(fake64, (4 << 30) // (4 * 1024))
+
+    class Dev:
+        platform, device_kind = "gpu", "test card"
+
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            return self.stats
+
+    with pytest.raises(RuntimeError, match="no memory stats"):
+        accumulator_budget_bytes(Dev(None))
+    assert accumulator_budget_bytes(Dev({"bytes_limit": 1 << 36})) == \
+        int((1 << 36) * ACC_MEMORY_FRACTION)

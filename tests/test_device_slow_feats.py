@@ -133,7 +133,7 @@ def test_slow_feats_device_parity(fixtures_dir, tmp_path, slow_weights,
     host = _run(fixtures_dir, tmp_path, "host.clstr", slow_weights,
                 {"MC2_NO_DEVICE_LOOP": "1", "MC2_NO_DEVICE_SESSION": "1"})
     dev = _run(fixtures_dir, tmp_path, "dev.clstr", slow_weights,
-               {"_DEV": "tpu"})
+               {"_DEV": "gpu"})
     out = capsys.readouterr().out
     assert "device session unavailable" not in out
     assert "not dd-derivable" not in out
@@ -149,7 +149,7 @@ def test_slow_feats_device_parity_forced_margin(fixtures_dir, tmp_path,
     host = _run(fixtures_dir, tmp_path, "host2.clstr", slow_weights,
                 {"MC2_NO_DEVICE_LOOP": "1", "MC2_NO_DEVICE_SESSION": "1"})
     dev = _run(fixtures_dir, tmp_path, "dev2.clstr", slow_weights,
-               {"_DEV": "tpu", "MC2_DD_MARGIN": "3e-3"})
+               {"_DEV": "gpu", "MC2_DD_MARGIN": "3e-3"})
     assert len(host) == len(dev)
     for ca, cb in zip(host, dev):
         assert [m["header"] for m in ca] == [m["header"] for m in cb]

@@ -80,3 +80,22 @@ def test_multihost_2proc_matches_1proc(fixtures_dir, tmp_path):
                fasta])
     assert rc == 0
     assert open(out1).read() == open(ref).read()
+
+
+@pytest.mark.parametrize("env,want", [
+    ({}, None),
+    ({"MC2_NPROCS": "1"}, None),
+    ({"MC2_NPROCS": "2", "MC2_PROC_ID": "1", "MC2_COORD": "localhost:1234"},
+     {"coordinator_address": "localhost:1234", "num_processes": 2,
+      "process_id": 1, "local_device_ids": [1]}),
+    ({"MC2_NPROCS": "2", "MC2_PROC_ID": "0", "MC2_COORD": "host0:1234"},
+     {"coordinator_address": "host0:1234", "num_processes": 2,
+      "process_id": 0}),
+])
+def test_distributed_args(env, want):
+    """One process drives every local device; processes that share a host
+    (localhost coordinator) each open only the card of their process id,
+    and processes on other hosts see all of theirs."""
+    from meshclust2_tpu.parallel.multihost import distributed_args
+
+    assert distributed_args(env) == want

@@ -1,69 +1,21 @@
-"""Pallas fused-stats kernel vs the float64 oracle (interpreter mode on the
-CPU test mesh; the same kernel compiles for TPU VMEM tiles)."""
+"""DeviceScorer on the center-vs-window shape vs the float64 oracle.
+
+The shape once had its own fused-statistics kernel; it now runs the same
+plain XLA singles path as every other batch (ops/device_features.py)."""
 import os
 
 import numpy as np
-import pytest
 
 from meshclust2_tpu.features import flags as F
-from meshclust2_tpu.features import host as H
 from meshclust2_tpu.io.fasta import read_fasta
 from meshclust2_tpu.kmer.counting import build_point_set
-from meshclust2_tpu.ops.pallas_stats import center_block_stats, derive_singles
-
-DERIVABLE = [
-    F.FEAT_MANHATTAN, F.FEAT_EUCLIDEAN, F.FEAT_INTERSECTION,
-    F.FEAT_KULCZYNSKI2, F.FEAT_SIMRATIO, F.FEAT_NORMALIZED_VECTORS,
-    F.FEAT_PEARSON_COEFF, F.FEAT_D2z, F.FEAT_EUCLIDEAN_Z, F.FEAT_EMD,
-    F.FEAT_LENGTHD,
-]
-
-
-def test_kernel_stats_exact(fixtures_dir):
-    recs = read_fasta(os.path.join(fixtures_dir, "pairs.fasta"))
-    ps = build_point_set(recs, 4, "uint16_t")
-    center = 0
-    block = np.arange(ps.n)
-    stats = center_block_stats(ps.counts[block], ps.counts[center], tile_b=8)
-    # integer stats must be exactly the brute-force values
-    h = ps.counts[block].astype(np.int64)
-    c = ps.counts[center].astype(np.int64)
-    np.testing.assert_array_equal(stats[:, 0], np.minimum(h, c).sum(axis=1))
-    np.testing.assert_array_equal(stats[:, 1], (h * c).sum(axis=1))
-    pref = np.cumsum(h - c, axis=1)
-    np.testing.assert_array_equal(stats[:, 2], np.abs(pref).sum(axis=1))
-
-
-def test_derived_singles_match_oracle(fixtures_dir):
-    recs = read_fasta(os.path.join(fixtures_dir, "pairs.fasta"))
-    ps = build_point_set(recs, 4, "uint16_t")
-    center = 2
-    block = np.arange(ps.n)
-    stats = center_block_stats(ps.counts[block], ps.counts[center], tile_b=8)
-    d = ps.dim
-    self_dots = (ps.counts.astype(np.float64) ** 2).sum(axis=1)
-    got = derive_singles(
-        stats,
-        ps.mags[block].astype(np.float64),
-        np.full(len(block), float(ps.mags[center])),
-        self_dots[block],
-        np.full(len(block), self_dots[center]),
-        ps.stddevs[block],
-        np.full(len(block), ps.stddevs[center]),
-        ps.lengths[block].astype(np.float64),
-        np.full(len(block), float(ps.lengths[center])),
-        d,
-        DERIVABLE,
-    )
-    A = H.side_from_pointset(ps, block)
-    B = H.side_from_pointset(ps, np.full(len(block), center))
-    want = H.compute_singles(DERIVABLE, A, B)
-    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
 
 
 def test_device_scorer_fused_path_matches_host(fixtures_dir):
-    """DeviceScorer routes center-vs-window batches through the fused Pallas
-    kernel (MC2_PALLAS auto); decisions must match the float64 host oracle."""
+    """A center-vs-window batch (one center against every row, the shape
+    the accumulate phase scores) through DeviceScorer's plain XLA path:
+    rounded decisions and the dist argmax must match the float64 host
+    oracle, values to f32 tolerance."""
     from meshclust2_tpu.cluster.engine import HostScorer
     from meshclust2_tpu.model.classifier import CompiledModel
     from meshclust2_tpu.model.weights import ModelBlock
@@ -83,11 +35,10 @@ def test_device_scorer_fused_path_matches_host(fixtures_dir):
     )
     model = CompiledModel(block)
     dev = DeviceScorer(ps, model)
-    assert dev.engine.fused_ok
     host = HostScorer(ps, model)
 
     a = np.arange(ps.n)
-    b = np.zeros(ps.n, dtype=np.int64)  # constant center -> fused route
+    b = np.zeros(ps.n, dtype=np.int64)  # one center for the whole window
     p_dev, d_dev = dev.score(a, b)
     p_host, d_host = host.score(a, b)
     np.testing.assert_array_equal(np.floor(p_dev + 0.5), np.floor(p_host + 0.5))
